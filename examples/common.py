@@ -5,7 +5,7 @@ mtx -> build matrix -> run accelerator backend and CPU backend for
 ``niters`` laps -> run the sequential naive oracle -> ``verify_exact`` ->
 print lap times.  The "two backends, same algorithm" trick is committed
 device placement: the same jitted program runs on ``jax.devices('cpu')``
-or on the TPU depending on where its inputs live.
+or on the GPU depending on where its inputs live.
 """
 
 from __future__ import annotations

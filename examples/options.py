@@ -3,7 +3,7 @@
 Mirrors the reference option set (``examples/options.hpp:34-66``): mtxpath,
 niters, source, run-ref/run-cpu/run-acc, platform/device, push-pull,
 front-factor, alpha, eps, undirected, verbose, debug-timing.  "acc" is the
-JAX default accelerator (TPU) instead of an OpenCL device.
+JAX default accelerator (GPU) instead of an OpenCL device.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ def make_options(name: str, desc: str) -> argparse.ArgumentParser:
     p.add_argument("--run-cpu", type=_bool, default=True,
                    help="run algo with cpu backend (jax cpu device)")
     p.add_argument("--run-acc", "--run-gpu", dest="run_acc", type=_bool, default=True,
-                   help="run algo with accelerator (TPU) backend")
+                   help="run algo with accelerator (GPU) backend")
     p.add_argument("--platform", type=int, default=0, help="id of platform to run")
     p.add_argument("--device", type=int, default=0, help="id of device to run")
     p.add_argument("--undirected", type=_bool, default=False,

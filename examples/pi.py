@@ -3,7 +3,7 @@
 The reference registers a custom ``OpUnary`` carrying both an OpenCL C
 source string and a host lambda (``examples/pi.cpp:55-67``).  Here a user
 op is ONE plain jax-traceable Python function — it runs on CPU and is
-traced into the TPU kernel, no dual-source needed.  The op hashes its
+traced into the accelerator program, no dual-source needed.  The op hashes its
 input seed into two uniforms and tests the unit circle.
 """
 
@@ -64,4 +64,7 @@ def run(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from spla_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(run())

@@ -81,4 +81,7 @@ def run(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from spla_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(run())

@@ -1,12 +1,12 @@
-"""spla_tpu — TPU-native GraphBLAS-style generalized sparse linear algebra.
+"""spla_tpu — GraphBLAS-style generalized sparse linear algebra in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference spla library (C++/OpenCL, see /root/reference): matrices,
 vectors and scalars over parametrizable element types, operations
 parametrized by arbitrary (multiply, add, select) semirings, masked
 SpMV/SpMM/SpGEMM kernels, and graph algorithms (BFS, SSSP, PageRank,
 triangle counting) built purely from the library's own primitives —
-redesigned TPU-first: sharded ``jax.Array`` containers, XLA/Pallas
+redesigned for accelerators: sharded ``jax.Array`` containers, XLA
 kernels, ``lax.while_loop`` convergence (no host sync), and
 ``jax.sharding.Mesh`` + collectives for multi-chip scaling.
 """

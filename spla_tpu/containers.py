@@ -1,6 +1,6 @@
 """Immutable pytree containers: Scalar, DenseVec, SparseVec, CooMatrix, CsrMatrix.
 
-TPU-native replacement for the reference's mutable multi-format storage
+JAX replacement for the reference's mutable multi-format storage
 engine (reference: ``src/core/tdecoration.hpp``, ``src/storage/
 storage_manager.hpp:128-204`` and the format structs in
 ``src/cpu/cpu_formats.hpp:54-120``).  The reference keeps several live
@@ -178,8 +178,7 @@ class CsrMatrix:
     """CSR matrix (reference ``CpuCsr`` Ap/Aj/Ax) + precomputed COO row ids.
 
     ``row_ids`` is the expansion of ``indptr`` into per-entry row indices
-    (pad = m); it feeds XLA segment/scatter ops directly, while Pallas
-    kernels use ``indptr``.
+    (pad = m); it feeds XLA segment/scatter ops directly.
     """
 
     shape: tuple  # static (m, n)
@@ -209,8 +208,8 @@ _register(CsrMatrix, ["indptr", "cols", "values", "row_ids", "nnz", "fill"], ["s
 class BsrMatrix:
     """Block-sparse (BSR) matrix of dense ``bs x bs`` tiles.
 
-    TPU-native format: tiles align with the 8x128 VPU / 128x128 MXU lanes so
-    block SpGEMM / SpMM runs as dense matmuls on the MXU.  No reference
+    Dense tiles let block SpMV / SpMM run as batched dense matmuls.  No
+    reference
     analog (the reference's AccCsc/AccCoo formats were declared but
     unimplemented — ``include/spla/config.hpp:102-121``).
     """

@@ -2,10 +2,13 @@
 
 Plain dataclass of kwargs: traversal direction (push / pull / adaptive
 push-pull with a frontier-density threshold), early-exit and
-structure-only hints.  On TPU ``early_exit`` is advisory only (kernels are
-vectorized; results are identical for the idempotent accumulators the
-reference pairs it with), and ``struct_only`` selects the boolean
-structure-only traversal kernels.
+structure-only hints.  The traversal direction (``push_only``,
+``pull_only``, ``push_pull``) and ``front_factor`` are advisory: every
+traversal level runs the same masked SpMV over all stored entries, so
+results are identical in every mode.  ``early_exit`` is advisory too
+(results are identical for the idempotent accumulators the reference
+pairs it with), and ``struct_only`` selects the boolean structure-only
+traversal.
 """
 
 from __future__ import annotations

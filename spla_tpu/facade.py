@@ -6,7 +6,7 @@ method names/signatures (mxm, mxmT, kron, kronpow, mxv, vxm, eadd, emult,
 reduce*, transpose, extract*, assign, map, ...), from_lists/rand/dense/
 diag constructors, and pretty-printers.
 
-TPU-native architecture difference: instead of the reference's mutable
+Architecture difference: instead of the reference's mutable
 multi-format decoration storage with a BFS conversion graph
 (``src/storage/storage_manager.hpp:128-204``), each object keeps
 
@@ -57,8 +57,8 @@ class Object:
 
 class FormatMatrix(enum.Enum):
     """Reference matrix storage-format enumeration
-    (``python/pyspla/bridge.py:101-124``).  TPU storage is implicit
-    (host staging + device CSR/packed snapshots chosen by the library);
+    (``python/pyspla/bridge.py:101-124``).  Device storage is implicit
+    (host staging + device CSR snapshots chosen by the library);
     ``Matrix.set_format`` accepts these values as advisory hints."""
 
     CPU_LIL = 0
@@ -200,7 +200,7 @@ def _sval(x):
 
 class MemView(Object):
     """Non-owning view over host memory for zero-copy build/read
-    (reference ``include/spla/memview.hpp:48-64``).  On TPU the host
+    (reference ``include/spla/memview.hpp:48-64``).  On a device the host
     buffer is necessarily copied at device upload; the view is the
     zero-copy HOST handle the bulk build/read APIs accept."""
 

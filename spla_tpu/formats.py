@@ -40,9 +40,10 @@ def round_up(x: int, m: int) -> int:
 
 
 # Host-side copies of device CSR arrays, keyed weakly by the device values
-# array.  Kernel preprocessing (pallas cell layout) reads the whole matrix
-# on host; without this cache it would pull hundreds of MB back over the
-# device transport.  Populated automatically by the host-side builders.
+# array.  Host-side preprocessing (transposes, symbolic SpGEMM sizing,
+# sharding) reads the whole matrix on host; without this cache it would
+# pull it back from the device each time.  Populated automatically by
+# the host-side builders.
 import weakref
 
 _HOST_ARRAYS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
@@ -364,7 +365,7 @@ def coo_to_dense(a: CooMatrix) -> jax.Array:
 
 
 def bsr_from_csr_host(a: CsrMatrix, block: int = 128, capacity=None) -> BsrMatrix:
-    """Host-side CSR -> BSR tiling (MXU-aligned blocks)."""
+    """Host-side CSR -> BSR tiling (dense ``block x block`` tiles)."""
     m, n = a.shape
     mb = (m + block - 1) // block
     nb = (n + block - 1) // block

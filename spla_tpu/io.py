@@ -29,6 +29,26 @@ _LIB = None
 _LIB_TRIED = False
 
 
+def _native_path(src: str) -> str:
+    """Binary name keyed by the source's hash, the host's machine type and
+    the compiler's target triple: a binary built from other sources or
+    for another host (a copied checkout) is never loaded.  The build
+    uses no ``-march=native``, so it runs on any CPU of its target."""
+    import hashlib
+    import platform
+
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read())
+    try:
+        target = subprocess.run(["g++", "-dumpmachine"], check=True,
+                                capture_output=True, text=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        target = "unknown"
+    h.update(f"{platform.machine()}/{target}".encode())
+    return os.path.abspath(
+        os.path.join(_NATIVE_DIR, f"libmtxio-{h.hexdigest()[:12]}.so"))
+
+
 def _native_lib():
     """Compile (once) and load the native parser; None on failure."""
     global _LIB, _LIB_TRIED
@@ -37,18 +57,17 @@ def _native_lib():
     _LIB_TRIED = True
     src = os.path.abspath(os.path.join(_NATIVE_DIR, "mtxio.cpp"))
     try:
-        # content-hash keyed binary: a stale/foreign-arch .so never loads
-        import hashlib
-
-        with open(src, "rb") as f:
-            tag = hashlib.sha256(f.read()).hexdigest()[:12]
-        so = os.path.abspath(os.path.join(_NATIVE_DIR, f"libmtxio-{tag}.so"))
+        so = _native_path(src)
         if not os.path.exists(so):
+            # build under a private name, then rename: concurrent builders
+            # never load a half-written binary
+            tmp = f"{so}.{os.getpid()}.tmp"
             subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC", src, "-o", so],
+                ["g++", "-O3", "-shared", "-fPIC", src, "-o", tmp],
                 check=True,
                 capture_output=True,
             )
+            os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         lib.mtx_parse.restype = ctypes.c_void_p
         lib.mtx_parse.argtypes = [ctypes.c_char_p]

@@ -1,12 +1,12 @@
 """Semiring building blocks: unary / binary / select operators.
 
-TPU-native analog of the reference op system (reference:
+JAX analog of the reference op system (reference:
 ``include/spla/op.hpp:47-210``, ``src/core/top.hpp:42-117``,
 ``src/op.cpp:157+``).  The reference carries *two* implementations per op —
 a host ``std::function`` and an OpenCL C source string spliced into kernels
 at runtime.  Here a single jax-traceable Python callable serves both roles:
-it runs on CPU (reference backend) and is traced into XLA/Pallas TPU
-kernels.  User-defined ops are therefore plain Python functions
+it runs on CPU (reference backend) and is traced into XLA programs
+for the accelerator.  User-defined ops are therefore plain Python functions
 (reference custom-op API: ``OpUnary::make_int(name, cl_code, fn)``,
 used e.g. by ``examples/pi.cpp:55-67``).
 

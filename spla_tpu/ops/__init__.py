@@ -1,4 +1,4 @@
-"""Functional op layer — TPU-native equivalents of the reference's 20
+"""Functional op layer — JAX equivalents of the reference's 20
 ``exec_*`` operations (``include/spla/exec.hpp:53-519``).
 
 Each op is a pure function over pytree containers, jax-traceable end to

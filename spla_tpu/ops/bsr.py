@@ -1,17 +1,22 @@
-"""BSR (block-sparse row) compute paths — MXU-aligned dense tiles.
+"""BSR (block-sparse row) compute paths — dense block tiles.
 
 The reference declared but never implemented device block formats
-(``include/spla/config.hpp:102-121`` AccCsc/AccCoo enum stubs); BSR is
-the TPU-native block format: dense ``bs x bs`` tiles sized to the MXU /
-VPU lanes so block SpMV/SpMM run as dense matmuls.  Best for matrices
-with block structure (banded / FEM-like); for scattered graphs use the
-CSR cell kernel (``spla_tpu.pallas.spmv``).
+(``include/spla/config.hpp:102-121`` AccCsc/AccCoo enum stubs); BSR
+stores dense ``bs x bs`` tiles so block SpMV/SpMM run as batched dense
+matmuls.  Best for matrices with block structure (banded / FEM-like);
+for scattered graphs use the CSR ops (``spla_tpu.ops.spmv``).
+
+Both block products pass ``precision=HIGHEST``: in float32 the default
+precision may run in TF32 on the GPU's tensor cores, which keeps only
+10 mantissa bits.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from jax import lax
 
 from ..containers import BsrMatrix, DenseVec
 
@@ -23,7 +28,8 @@ def _block_valid(A: BsrMatrix):
 
 
 def bsr_spmv(A: BsrMatrix, x, op_mul=None, op_add=None, init=0.0) -> jax.Array:
-    """y = A @ x over (op_mul, PLUS) with dense block tiles on the MXU.
+    """y = A @ x over (op_mul, PLUS) with dense block tiles (full float32
+    precision).
 
     Block-level gather of x (bs-sized rows — coarse enough for efficient
     XLA gathers), one batched matvec over all stored blocks, block-row
@@ -33,7 +39,7 @@ def bsr_spmv(A: BsrMatrix, x, op_mul=None, op_add=None, init=0.0) -> jax.Array:
     add_name = getattr(op_add, "name", None)
     assert op_add is None or add_name == "PLUS", (
         f"bsr_spmv accumulates PLUS only (got {add_name}); general "
-        "monoids go through the CSR cell kernels (spla_tpu.pallas.spmv)"
+        "monoids go through the CSR ops (spla_tpu.ops.mxv_masked)"
     )
     if isinstance(x, DenseVec):
         x = x.values
@@ -48,6 +54,7 @@ def bsr_spmv(A: BsrMatrix, x, op_mul=None, op_add=None, init=0.0) -> jax.Array:
         prod = jnp.einsum(
             "ebc,ec->eb", A.blocks, xb,
             preferred_element_type=A.blocks.dtype,
+            precision=lax.Precision.HIGHEST,
         )
     else:
         prod = jnp.sum(op_mul(A.blocks, xb[:, None, :]), axis=2)
@@ -58,9 +65,8 @@ def bsr_spmv(A: BsrMatrix, x, op_mul=None, op_add=None, init=0.0) -> jax.Array:
 
 
 def bsr_spmm(A: BsrMatrix, X) -> jax.Array:
-    """Y = A @ X for dense X [n, k] — batched 128x128 MXU matmuls with a
-    block-row segment sum (the sparse-times-dense product the MXU is
-    built for)."""
+    """Y = A @ X for dense X [n, k] — batched block matmuls in full
+    float32 precision with a block-row segment sum."""
     m, n = A.shape
     bs = A.block
     mb, nb = A.block_shape
@@ -69,7 +75,8 @@ def bsr_spmm(A: BsrMatrix, X) -> jax.Array:
     cols = jnp.clip(A.cols, 0, nb - 1)
     Xb = Xp[cols]  # [bcap, bs, k]
     prod = jnp.einsum(
-        "ebc,eck->ebk", A.blocks, Xb, preferred_element_type=A.blocks.dtype
+        "ebc,eck->ebk", A.blocks, Xb, preferred_element_type=A.blocks.dtype,
+        precision=lax.Precision.HIGHEST,
     )
     prod = jnp.where(_block_valid(A)[:, None, None], prod, 0)
     rows = jnp.where(_block_valid(A), A.row_ids, mb)

@@ -1,6 +1,6 @@
 """Masked generalized SpMV — the hottest ops (BFS/SSSP/PR inner step).
 
-TPU-native redesign of the reference's pull/push SpMV pair:
+JAX redesign of the reference's pull/push SpMV pair:
 
 * ``mxv_masked`` — pull SpMV with mask select + init (reference
   ``src/cpu/cpu_mxv.hpp:88-105``, OpenCL ``kernels/mxv.cl:44-81``).
@@ -13,8 +13,9 @@ matrix: push is pull over the transpose with a validity mask on the input
 vector's stored entries.  The OpenCL atomics/sort/reduce-by-key machinery
 is replaced by a segment reduction (scatter or segmented scan — see
 ``spla_tpu.utils.segments``), which XLA fuses with the gather and the
-elementwise multiply; a Pallas kernel (``spla_tpu.pallas.spmv``) covers the
-plus-times / min-plus / structural fast paths at HBM-roofline rates.
+elementwise multiply.  On the GPU the gather and the scatter-fold lower
+to hardware gathers and atomics; float PLUS folds therefore sum in an
+order that changes from run to run (MIN/MAX and integer folds are exact).
 
 Semantics (per reference): ``r[i] = select(mask[i]) ? fold(add, init,
 mul(M[i,j], v[j]) for stored j) : init``; a result slot is *stored* iff the
@@ -30,7 +31,6 @@ import jax
 import jax.numpy as jnp
 
 from ..containers import CsrMatrix, DenseVec, Scalar, SparseVec
-from ..formats import dense_to_sparse_vec
 from ..utils.segments import segment_fold
 
 __all__ = [
@@ -100,94 +100,10 @@ def masked_spmv_structural(
     return reached
 
 
-# ---------------------------------------------------------------------------
-# Accelerated dispatch (reference Dispatcher parity).
-#
-# The reference prefers the accelerated registration for EVERY dispatched op
-# ("key__cl" before "key__cpu", ``src/core/dispatcher.cpp:42-85``) unless
-# ``set_force_no_acceleration``.  The equivalent here: the public
-# ``mxv_masked`` / ``vxm_masked`` entry points route to the Pallas fused
-# monoid kernels when (a) running on TPU (or dispatch is forced for
-# interpret-mode testing), (b) the call is eager (no tracers — inside a
-# user jit the XLA path participates in the caller's fusion instead), and
-# (c) the semiring gates pass; otherwise they fall back to the XLA
-# gather+segment path (the CPU reference backend role).
-# ---------------------------------------------------------------------------
-
-import os as _os
-
-from ..formats import WeakIdCache as _WeakIdCache
-
-_DISPATCH_CACHE = _WeakIdCache()
-
-# observability: which path each public-op dispatch took (reference analog:
-# the dispatcher's per-key log lines, dispatcher.cpp:51-59).  Tests assert
-# on these; bench_suite reports them.  *_tracer counts calls that fell to
-# the XLA path ONLY because they were traced inside a user jit (where the
-# eager Pallas dispatch cannot run; see docs/getting-started.md "Don't
-# wrap the facade in your own jit") — a nonzero count is the signal that
-# a user loop is silently paying the XLA-path cost.
-DISPATCH_STATS = {"mxv_pallas": 0, "mxv_xla": 0, "vxm_pallas": 0,
-                  "vxm_xla": 0, "mxv_tracer": 0, "vxm_tracer": 0}
-
-
-def _accel_enabled() -> bool:
-    if _os.environ.get("SPLA_NO_PALLAS"):
-        return False
-    if _os.environ.get("SPLA_FORCE_PALLAS_DISPATCH"):
-        # testing hook: exercise the dispatch wiring via interpret-mode
-        # Pallas on CPU (reference analog: compiling the gtest main with
-        # a chosen platform id, tests/test_common.hpp:66-89)
-        return True
-    try:
-        from ..library import get_library
-
-        return get_library().is_accelerated()
-    except Exception:  # pragma: no cover
-        return False
-
-
-def _has_tracer(*trees) -> bool:
-    return any(
-        isinstance(leaf, jax.core.Tracer)
-        for tree in trees
-        for leaf in jax.tree_util.tree_leaves(tree)
-    )
-
-
-def _pallas_fn(A: CsrMatrix, op_mul, op_add, init):
-    """Accelerated unmasked-SpMV callable ``f(A, x) -> vals`` or None.
-
-    Formats are cached per matrix (weak-id, dies with A.values); kernel
-    jit caching is keyed on the stable op ``fn`` objects."""
-    try:
-        from ..pallas.spmv import pallas_spmv_fn, pallas_spmv_fn_int
-    except ImportError:  # pragma: no cover
-        return None
-    try:
-        fn = pallas_spmv_fn(A, op_mul, op_add, init)
-        if fn is None:
-            # int32/uint32 semirings via the exact f32 embedding
-            fn = pallas_spmv_fn_int(A, op_mul, op_add, init)
-        return fn
-    except Exception as e:  # defensive: a packer/kernel failure must
-        # degrade to the reference path, as the reference dispatcher
-        # degrades CL build errors (dispatcher.cpp:66-79)
-        from ..library import log_msg
-
-        log_msg("Error", f"pallas dispatch failed, using XLA path: {e}")
-        return None
-
-
 def best_spmv_fn(A: CsrMatrix, op_mul, op_add, init):
-    """Return the fastest available unmasked-SpMV callable
-    ``f(A, x) -> vals`` for this matrix/semiring: the Pallas TPU kernel
-    when dispatch is enabled and the semiring is covered, else the XLA
-    gather+segment path (which is also the CPU reference backend)."""
-    if _accel_enabled():
-        fn = _pallas_fn(A, op_mul, op_add, init)
-        if fn is not None:
-            return fn
+    """Unmasked-SpMV callable ``f(A, x) -> vals`` for this semiring: the
+    gather + segment-fold path of :func:`masked_spmv`, which XLA compiles
+    for whatever device holds the operands."""
 
     def xla_fn(A, x):
         out, _ = masked_spmv(A, x, op_mul, op_add, init)
@@ -196,144 +112,7 @@ def best_spmv_fn(A: CsrMatrix, op_mul, op_add, init):
     return xla_fn
 
 
-def _structural_hits_fn(A: CsrMatrix):
-    """``f(x01 f32) -> bool[m]`` via the structural (pattern) Pallas
-    kernel: hits[i] = any stored (i, j) with x01[j] != 0.  None when no
-    packed structural format is available."""
-    try:
-        from ..pallas.spmv import get_best_monoid_format
-    except ImportError:  # pragma: no cover
-        return None
-    try:
-        fmt, apply_fn = get_best_monoid_format(A, structural=True)
-    except Exception:
-        return None
-    if fmt is None:
-        return None
-
-    def hits(x01, fmt=fmt, apply_fn=apply_fn):
-        return apply_fn(fmt, x01, op_mul=_mul_stable, op_add=jnp.maximum,
-                        identity=0.0) > 0
-
-    return hits
-
-
-def _mul_stable(a, b):
-    return a * b
-
-
-# vxm absorb table: dense-x slot value for UNSTORED v entries such that
-# every product op_mul(v', M_ij) equals the op_add identity — the input-
-# validity mask the XLA path threads through ``x_valid`` expressed as a
-# value (the Pallas kernels have no validity operand).  Keyed by
-# (mul name, op_add.scatter kind).  Requires finite matrix values (e.g.
-# inf * 0 = nan); gated by `_matrix_finite`.
-_VXM_ABSORB = {
-    ("MULT", "add"): 0.0,
-    ("FIRST", "add"): 0.0,
-    ("FIRST", "min"): float("inf"),
-    ("FIRST", "max"): float("-inf"),
-    ("PLUS", "min"): float("inf"),
-    ("PLUS", "max"): float("-inf"),
-    ("MIN", "max"): float("-inf"),
-    ("MAX", "min"): float("inf"),
-}
-
-# int32/uint32 variant, keyed by (mul name, op_add NAME): only pairs
-# whose absorbing product is exact in wrapping int arithmetic (no
-# overflow path: the product is the constant itself or 0).  PLUS-mul
-# pairs are excluded — identity +- a wraps.
-_VXM_ABSORB_INT = {
-    ("MULT", "PLUS"): 0,
-    ("MULT", "BOR"): 0,
-    ("BAND", "BOR"): 0,  # the reference BFS traversal semiring
-    ("LAND", "LOR"): 0,
-    ("MIN", "MAX"): "identity",  # MIN(identity_of_MAX=lowest, a) = lowest
-    ("MAX", "MIN"): "identity",
-    ("FIRST", "PLUS"): "identity",
-    ("FIRST", "MIN"): "identity",
-    ("FIRST", "MAX"): "identity",
-    ("FIRST", "BOR"): "identity",
-}
-
-# vxm computes mul(v[i], M[i,j]) but the kernels compute mul(M_ij, x_i):
-# commutative muls pass through; FIRST/SECOND swap names; anything else
-# falls back to the XLA path (no absorb entry anyway).
-_SWAPPED_MUL_CACHE: dict = {}
-
-
-def _swapped_mul(op_mul):
-    if op_mul is None or getattr(op_mul, "commutative", False):
-        return op_mul
-    got = _SWAPPED_MUL_CACHE.get(op_mul)
-    if got is None:
-        from types import SimpleNamespace
-
-        name = getattr(op_mul, "name", "?")
-        sname = {"FIRST": "SECOND", "SECOND": "FIRST"}.get(name, f"SW_{name}")
-        raw = getattr(op_mul, "fn", op_mul)
-
-        def sfn(a, b, raw=raw):
-            return raw(b, a)
-
-        got = SimpleNamespace(name=sname, fn=sfn, commutative=False)
-        _SWAPPED_MUL_CACHE[op_mul] = got
-    return got
-
-
-def _matrix_finite(A: CsrMatrix) -> bool:
-    """Cached host check that A's stored values are all finite (one D2H
-    per matrix; the packed formats pull the same arrays anyway)."""
-    got = _DISPATCH_CACHE.get(A.values, ("finite",))
-    if got is None:
-        import numpy as np
-
-        from ..formats import host_coo
-
-        _, _, vals = host_coo(A)
-        got = bool(np.isfinite(vals).all())
-        _DISPATCH_CACHE.put(A.values, got, ("finite",))
-    return got
-
-
-@partial(jax.jit, static_argnames=("op_select",))
-def _mxv_mask_post(vals, mask_vals, op_select, init):
-    sel = op_select(mask_vals)
-    return DenseVec(jnp.where(sel, vals, init), init)
-
-
-@partial(jax.jit, static_argnames=("op_select", "cap", "n_out"))
-def _vxm_post(out_vals, hits, mask_vals, op_select, init, cap, n_out):
-    has = hits & op_select(mask_vals)
-    out = jnp.where(has, out_vals, init)
-    (idx,) = jnp.nonzero(has, size=cap, fill_value=n_out)
-    vals = jnp.where(idx < n_out, out[jnp.clip(idx, 0, n_out - 1)], init)
-    nnz = jnp.minimum(jnp.sum(has).astype(jnp.int32), jnp.int32(cap))
-    return SparseVec(n=n_out, indices=idx.astype(jnp.int32), values=vals,
-                     nnz=nnz, fill=init)
-
-
-@partial(jax.jit, static_argnames=("n_in",))
-def _vxm_dense_x_sparse(v: SparseVec, n_in, absorb):
-    """Dense (x, active) from a SparseVec with unstored slots = absorb."""
-    valid = v.valid_mask()
-    base = jnp.full((n_in + 1,), absorb, v.values.dtype)
-    x = base.at[v.indices].set(jnp.where(valid, v.values, absorb),
-                               mode="drop")[:n_in]
-    active = (
-        jnp.zeros((n_in + 1,), jnp.bool_)
-        .at[v.indices]
-        .set(valid, mode="drop")[:n_in]
-    )
-    return x, active
-
-
-@jax.jit
-def _vxm_dense_x_dense(v: DenseVec, absorb):
-    active = v.stored_mask()
-    return jnp.where(active, v.values, absorb), active
-
-
+@partial(jax.jit, static_argnames=("op_mul", "op_add", "op_select", "desc"))
 def mxv_masked(
     mask: DenseVec,
     M: CsrMatrix,
@@ -345,40 +124,8 @@ def mxv_masked(
     desc=None,
 ) -> DenseVec:
     """Pull SpMV: dense result over dense v (reference exec_mxv_masked,
-    ``include/spla/exec.hpp:157-186``).  ``early_exit`` is advisory on TPU
-    (results identical for idempotent accumulators).
-
-    Dispatches to the Pallas fused monoid kernel when accelerated (the
-    reference's ``__cl``-preference, ``dispatcher.cpp:42-85``); the mask
-    select is applied to the kernel's dense output."""
-    if _accel_enabled():
-        if _has_tracer(mask, M, v, init):
-            # traced inside a user jit: the XLA path participates in the
-            # caller's fusion; counted once per trace as the signal that
-            # a user loop bypasses the Pallas kernels (r4 verdict item 9)
-            DISPATCH_STATS["mxv_tracer"] += 1
-        else:
-            fn = _pallas_fn(M, op_mul, op_add, init)
-            if fn is not None:
-                DISPATCH_STATS["mxv_pallas"] += 1
-                init_a = _scalar(init, M.values.dtype)
-                vals = fn(M, v.values)
-                return _mxv_mask_post(vals, mask.values, op_select, init_a)
-    DISPATCH_STATS["mxv_xla"] += 1
-    return _mxv_masked_xla(mask, M, v, op_mul, op_add, op_select, init, desc)
-
-
-@partial(jax.jit, static_argnames=("op_mul", "op_add", "op_select", "desc"))
-def _mxv_masked_xla(
-    mask: DenseVec,
-    M: CsrMatrix,
-    v: DenseVec,
-    op_mul,
-    op_add,
-    op_select,
-    init,
-    desc=None,
-) -> DenseVec:
+    ``include/spla/exec.hpp:157-186``).  ``early_exit`` is advisory
+    (results identical for idempotent accumulators)."""
     init_a = _scalar(init, M.values.dtype)
     out, _ = masked_spmv(
         M,
@@ -393,39 +140,37 @@ def _mxv_masked_xla(
     return DenseVec(out, init_a)
 
 
-def vxm_masked(
-    mask: DenseVec,
-    v,
-    M_t: CsrMatrix,
-    op_mul,
-    op_add,
-    op_select,
-    init,
-    desc=None,
-    out_capacity: int | None = None,
-) -> SparseVec:
-    """Push SpMV r = v x M (see :func:`_vxm_masked_xla` for semantics).
-
-    Accelerated dispatch: when the (mul, add) pair has an absorbing input
-    value (``_VXM_ABSORB``) and the matrix is finite, the value pass runs
-    the Pallas fused kernel over a dense x whose unstored slots hold the
-    absorb value, and structural stored-ness comes from the structural
-    (pattern) kernel — two Pallas SpMVs instead of the XLA gather+
-    sort-free segment pipeline (reference 3-phase ``cl_vxm.hpp:73-177``)."""
-    if _accel_enabled():
-        if _has_tracer(mask, v, M_t, init):
-            DISPATCH_STATS["vxm_tracer"] += 1
-        else:
-            r = _vxm_accelerated(mask, v, M_t, op_mul, op_add, op_select,
-                                 init, out_capacity)
-            if r is not None:
-                DISPATCH_STATS["vxm_pallas"] += 1
-                return r
-    DISPATCH_STATS["vxm_xla"] += 1
-    return _vxm_masked_xla(mask, v, M_t, op_mul, op_add, op_select, init,
-                           desc, out_capacity)
+def _vxm_products(mask, v, M_t, op_mul, op_add, op_select, init_a):
+    """Shared body of the push SpMVs: densify ``v`` (unstored slots are
+    invalid inputs) and run the pull primitive over ``M_t`` with the
+    operand order swapped — masked_spmv computes ``mul(A_t[j,i], x[i])``
+    but the reference computes ``mul(v[i], M[i,j])``."""
+    n_in = M_t.shape[1]
+    if isinstance(v, SparseVec):
+        base = jnp.full((n_in + 1,), init_a, init_a.dtype)
+        vals = jnp.where(v.valid_mask(), v.values, init_a)
+        x_vals = base.at[v.indices].set(vals, mode="drop")[:n_in]
+        x_valid = (
+            jnp.zeros((n_in + 1,), jnp.bool_)
+            .at[v.indices]
+            .set(v.valid_mask(), mode="drop")[:n_in]
+        )
+    else:
+        x_vals = v.values
+        x_valid = v.stored_mask()
+    return masked_spmv(
+        M_t,
+        x_vals,
+        lambda a_val, x_val: op_mul(x_val, a_val),
+        op_add,
+        init_a,
+        x_valid=x_valid,
+        mask_vals=mask.values,
+        op_select=op_select,
+    )
 
 
+@partial(jax.jit, static_argnames=("op_mul", "op_add", "op_select", "desc"))
 def vxm_masked_dense(
     mask: DenseVec,
     v,
@@ -440,119 +185,15 @@ def vxm_masked_dense(
 
     Value-equivalent to ``dense(vxm_masked(...))``: a dense container
     represents stored-slots-whose-value-equals-fill identically to
-    unstored slots, so the structural stored-ness pass and the sparse
-    compaction are unobservable through it.  The accelerated path is
-    therefore ONE Pallas kernel (absorb-masked value pass + mask select)
-    instead of vxm_masked's two plus compaction."""
-    if _accel_enabled():
-        if _has_tracer(mask, v, M_t, init):
-            DISPATCH_STATS["vxm_tracer"] += 1
-        else:
-            r = _vxm_accelerated_dense(mask, v, M_t, op_mul, op_add,
-                                       op_select, init)
-            if r is not None:
-                DISPATCH_STATS["vxm_pallas"] += 1
-                return r
-    DISPATCH_STATS["vxm_xla"] += 1
-    return _vxm_masked_dense_xla(mask, v, M_t, op_mul, op_add, op_select,
-                                 init, desc)
-
-
-@partial(jax.jit, static_argnames=("op_mul", "op_add", "op_select", "desc"))
-def _vxm_masked_dense_xla(mask, v, M_t, op_mul, op_add, op_select, init,
-                          desc=None):
-    dtype = M_t.values.dtype
-    init_a = _scalar(init, dtype)
-    n_out, n_in = M_t.shape
-    if isinstance(v, SparseVec):
-        base = jnp.full((n_in + 1,), init_a, dtype)
-        vals = jnp.where(v.valid_mask(), v.values, init_a)
-        x_vals = base.at[v.indices].set(vals, mode="drop")[:n_in]
-        x_valid = (
-            jnp.zeros((n_in + 1,), jnp.bool_)
-            .at[v.indices]
-            .set(v.valid_mask(), mode="drop")[:n_in]
-        )
-    else:
-        x_vals = v.values
-        x_valid = v.stored_mask()
-    out, has = masked_spmv(
-        M_t,
-        x_vals,
-        lambda a_val, x_val: op_mul(x_val, a_val),
-        op_add,
-        init_a,
-        x_valid=x_valid,
-        mask_vals=mask.values,
-        op_select=op_select,
-    )
+    unstored slots, so the sparse compaction is unobservable through it
+    and is skipped."""
+    init_a = _scalar(init, M_t.values.dtype)
+    out, has = _vxm_products(mask, v, M_t, op_mul, op_add, op_select, init_a)
     return DenseVec(jnp.where(has, out, init_a), init_a)
 
 
-def _vxm_accelerated_dense(mask, v, M_t, op_mul, op_add, op_select, init):
-    prep = _vxm_absorb_prep(v, M_t, op_mul, op_add, init)
-    if prep is None:
-        return None
-    fn, x, _active, init_a = prep
-    out_vals = fn(M_t, x)
-    return _mxv_mask_post(out_vals, mask.values, op_select, init_a)
-
-
-def _vxm_absorb_prep(v, M_t, op_mul, op_add, init):
-    """Shared gates + dense-x construction for the accelerated vxm
-    paths; returns (kernel_fn, x_dense, active_mask, init_a) or None."""
-    mul_name = "MULT" if op_mul is None else getattr(op_mul, "name", None)
-    if M_t.values.dtype == jnp.float32:
-        kind = getattr(op_add, "scatter", None)
-        absorb = _VXM_ABSORB.get((mul_name, kind))
-        if absorb is None:
-            return None
-        if not _matrix_finite(M_t):
-            return None
-    elif M_t.values.dtype in (jnp.int32, jnp.uint32):
-        absorb = _VXM_ABSORB_INT.get(
-            (mul_name, getattr(op_add, "name", None)))
-        if absorb is None:
-            return None
-        if absorb == "identity":
-            absorb = getattr(op_add, "identity", None)
-            if absorb is None:
-                return None
-    else:
-        return None
-    kmul = _swapped_mul(op_mul)
-    fn = _pallas_fn(M_t, kmul, op_add, init)
-    if fn is None:
-        return None
-    n_out, n_in = M_t.shape
-    init_a = _scalar(init, M_t.values.dtype)
-    absorb_a = jnp.asarray(absorb, M_t.values.dtype)
-    if isinstance(v, SparseVec):
-        x, active = _vxm_dense_x_sparse(v, n_in, absorb_a)
-    else:
-        x, active = _vxm_dense_x_dense(v, absorb_a)
-    return fn, x, active, init_a
-
-
-def _vxm_accelerated(mask, v, M_t, op_mul, op_add, op_select, init,
-                     out_capacity):
-    prep = _vxm_absorb_prep(v, M_t, op_mul, op_add, init)
-    if prep is None:
-        return None
-    hits_fn = _structural_hits_fn(M_t)
-    if hits_fn is None:
-        return None
-    fn, x, active, init_a = prep
-    n_out = M_t.shape[0]
-    out_vals = fn(M_t, x)
-    hits = hits_fn(active.astype(jnp.float32))
-    cap = out_capacity if out_capacity is not None else n_out
-    return _vxm_post(out_vals, hits, mask.values, op_select, init_a, cap,
-                     n_out)
-
-
 @partial(jax.jit, static_argnames=("op_mul", "op_add", "op_select", "desc", "out_capacity"))
-def _vxm_masked_xla(
+def vxm_masked(
     mask: DenseVec,
     v,
     M_t: CsrMatrix,
@@ -570,37 +211,13 @@ def _vxm_masked_xla(
     ``v`` may be a SparseVec (reference signature) or a DenseVec whose
     stored entries are those != fill.  Result is sparse; stored slots are
     exactly those with a selected product (value may equal init —
-    reference ``cpu_vxm.hpp`` keeps them).
-
-    NOTE the product order: reference computes ``mul(v[i], M[i,j])``.
+    reference ``cpu_vxm.hpp`` keeps them).  Every stored entry of ``M_t``
+    is read whatever the frontier's density: the descriptor's push/pull
+    modes are advisory.
     """
-    dtype = M_t.values.dtype
-    init_a = _scalar(init, dtype)
-    n_out, n_in = M_t.shape
-    if isinstance(v, SparseVec):
-        base = jnp.full((n_in + 1,), init_a, dtype)
-        vals = jnp.where(v.valid_mask(), v.values, init_a)
-        x_vals = base.at[v.indices].set(vals, mode="drop")[:n_in]
-        x_valid = (
-            jnp.zeros((n_in + 1,), jnp.bool_)
-            .at[v.indices]
-            .set(v.valid_mask(), mode="drop")[:n_in]
-        )
-    else:
-        x_vals = v.values
-        x_valid = v.stored_mask()
-    # swap operand order: masked_spmv computes mul(A_t[j,i], x[i]) but the
-    # reference computes mul(v[i], M[i,j]).
-    out, has = masked_spmv(
-        M_t,
-        x_vals,
-        lambda a_val, x_val: op_mul(x_val, a_val),
-        op_add,
-        init_a,
-        x_valid=x_valid,
-        mask_vals=mask.values,
-        op_select=op_select,
-    )
+    init_a = _scalar(init, M_t.values.dtype)
+    n_out = M_t.shape[0]
+    out, has = _vxm_products(mask, v, M_t, op_mul, op_add, op_select, init_a)
     cap = out_capacity if out_capacity is not None else n_out
     (idx,) = jnp.nonzero(has, size=cap, fill_value=n_out)
     vals = jnp.where(idx < n_out, out[jnp.clip(idx, 0, n_out - 1)], init_a)

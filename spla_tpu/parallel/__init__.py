@@ -4,9 +4,10 @@ and distributed graph algorithms.
 The reference is single-process/single-device (SURVEY §2.8 — its only
 "communication backend" is host↔device buffer copies inside format
 converters).  This layer is new capability mandated by BASELINE.json's
-north star: row-partitioned matrices per chip, frontier/halo vectors
-exchanged with ``jax.lax`` collectives over ICI, ``jax.sharding.Mesh`` +
-``shard_map`` as the first-class communication backend.
+north star: row-partitioned matrices per device, frontier/halo vectors
+exchanged with ``jax.lax`` collectives (NCCL over NVLink between the
+cards of one host), ``jax.sharding.Mesh`` + ``shard_map`` as the
+first-class communication backend.
 """
 
 from .mesh import make_device_mesh
@@ -23,17 +24,6 @@ from .dist_ops import (
     dist_pagerank,
     dist_pagerank_overlap,
     dist_sssp,
-)
-from .dist_cell import (
-    ShardedCellSpmv,
-    dist_bfs_pallas,
-    dist_bfs_pallas_overlap,
-    dist_pagerank_pallas,
-    dist_pagerank_pallas_overlap,
-    dist_sssp_pallas,
-    dist_sssp_pallas_overlap,
-    shard_cell_spmv,
-    shard_cell_spmv_split,
 )
 from .dist_spgemm import (
     count_dist_mxm_cap,
@@ -55,15 +45,6 @@ __all__ = [
     "dist_pagerank_overlap",
     "dist_bfs",
     "dist_sssp",
-    "ShardedCellSpmv",
-    "shard_cell_spmv",
-    "dist_pagerank_pallas",
-    "dist_bfs_pallas",
-    "dist_sssp_pallas",
-    "dist_pagerank_pallas_overlap",
-    "dist_bfs_pallas_overlap",
-    "dist_sssp_pallas_overlap",
-    "shard_cell_spmv_split",
     "dist_mxm",
     "dist_mxmT_masked_reduce",
     "dist_tc",

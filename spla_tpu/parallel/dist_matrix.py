@@ -189,7 +189,7 @@ def shard_csr_split_diag(
     (padded) column ids and consumes the all-gathered x.  A step that
     computes ``diag @ x_local`` while the gather for ``off @ x_full`` is
     in flight lets XLA's latency-hiding scheduler overlap the collective
-    with Pallas/XLA compute (the north-star "halo exchange overlapped
+    with compute (the north-star "halo exchange overlapped
     with compute"; SURVEY §2.8).
 
     Returns ``(diag, off)`` ShardedCsr; diag.shape[1] == mloc (local)."""

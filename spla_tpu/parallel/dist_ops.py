@@ -2,7 +2,7 @@
 
 1-D row decomposition: each chip owns ``mloc`` matrix rows (its output
 slots); the input vector is gathered across the axis per step
-(``lax.all_gather`` rides ICI intra-slice, DCN across hosts).  The
+(``lax.all_gather``, NCCL over NVLink between the cards of one host).  The
 convergence loops run *inside* ``shard_map`` as ``lax.while_loop``s whose
 carried count/error scalars are ``psum``-replicated — uniform loop exit
 across chips with zero host round-trips per iteration (the reference
@@ -181,7 +181,7 @@ def dist_pagerank_overlap(mesh: Mesh, diag: ShardedCsr, off: ShardedCsr,
 
 # -- sparse-frontier halo exchange ------------------------------------------
 #
-# The round-3 verdict's efficiency gap: a full all_gather moves O(n) bytes
+# The efficiency gap: a full all_gather moves O(n) bytes
 # per level even when the frontier holds one vertex (road-class graphs run
 # thousands of near-empty levels).  The exchange below is CAPPED-SPARSE:
 # each shard compacts its frontier to <= cap (index, value) pairs and the
@@ -191,7 +191,7 @@ def dist_pagerank_overlap(mesh: Mesh, diag: ShardedCsr, off: ShardedCsr,
 # of the reference's push/pull direction optimization over frontier
 # density (``src/algorithm.cpp:93-100``).  Stats carries count logical
 # gather bytes so the virtual mesh validates comm VOLUME even where its
-# timings are meaningless (BENCH.md "Multi-chip").
+# timings are meaningless.
 
 
 def _bfs_sparse_exchange(front, my, mloc, cap, axis):

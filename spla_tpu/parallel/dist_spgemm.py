@@ -8,7 +8,7 @@ single-device (SURVEY §2.8).  Scheme:
   row partition, so each chip owns the merge of its A rows.
 * **Ring rotation**: the needed B rows live on other chips; instead of
   replicating B, its shard arrays rotate around the mesh axis with
-  ``lax.ppermute`` (rides ICI).  At step s, chip p holds B shard
+  ``lax.ppermute`` (NCCL over NVLink).  At step s, chip p holds B shard
   ``(p + s) % P`` and expands exactly the products of its local A entries
   whose column falls in that shard — after P steps every product has been
   produced exactly once, with communication volume |B| per chip total
@@ -19,7 +19,7 @@ single-device (SURVEY §2.8).  Scheme:
   pass (``kernels/vxm.cl:30-55``).
 * **Numeric phase** (one jit program): per-step prefix-sum expansion +
   gather (no atomics), then ONE sort + segmented fold over the
-  concatenated P-step product list per chip — the TPU-native equivalent of
+  concatenated P-step product list per chip — the equivalent of
   the reference CPU SpGEMM's dense-row accumulator
   (``src/cpu/cpu_mxm.hpp:88-114``).
 
@@ -140,7 +140,7 @@ def _dist_mxm_impl(mesh, a_arrs, b_arrs, init, cap, out_cap, op_mul, op_add, met
             acc_j = lax.dynamic_update_slice(acc_j, jnp.where(slot_ok, j, 0), (s * cap,))
             acc_v = lax.dynamic_update_slice(acc_v, v, (s * cap,))
             acc_ok = lax.dynamic_update_slice(acc_ok, slot_ok, (s * cap,))
-            # rotate B shard to the next chip (ring over ICI)
+            # rotate B shard to the next chip (ring over the mesh axis)
             perm = [(p, (p - 1) % n_shards) for p in range(n_shards)]
             bi = lax.ppermute(bi, axis, perm)
             bc = lax.ppermute(bc, axis, perm)

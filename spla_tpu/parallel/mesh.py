@@ -2,9 +2,10 @@
 
 Replaces the reference's accelerator selection (``Library::set_accelerator``
 / ``CLAccelerator`` platform+device pick, ``src/opencl/cl_accelerator.hpp:
-65-131``) with a ``jax.sharding.Mesh``: the "device" is the whole slice.
-1-D mesh over all chips; ICI handles intra-slice collectives, DCN
-multi-host (transparent through the same axis).
+65-131``) with a ``jax.sharding.Mesh``: the "device" is every card the
+process sees.  1-D mesh over all cards.  The cards of one host are joined
+all to all by NVLink, so the collectives (NCCL) cost the same between any
+pair and the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

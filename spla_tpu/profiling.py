@@ -3,7 +3,7 @@
 Equivalent of the reference TimeProfiler (``src/profiling/
 time_profiler.hpp:44-100``: static labels with parent links + atomic
 nanos, RAII scopes, dump/reset) and of the OpenCL event-profiling macros
-(``src/opencl/cl_debug.hpp:36-103``).  On TPU, per-kernel device timing
+(``src/opencl/cl_debug.hpp:36-103``).  On a device, per-kernel timing
 comes from ``jax.profiler`` traces; this module provides the host-side
 wall-clock scope tree every backend op opens (the reference opens one per
 algo, e.g. ``cl_vxm.hpp:74``), with the same dump/reset lifecycle

@@ -1,19 +1,9 @@
-"""Host-side vertex relabeling (degree-aware lane dealing).
+"""Host-side vertex relabeling for load balance.
 
-The fused cell layouts (``spla_tpu.pallas.spmv``) pad each (row-block,
-window) cell up to the max of its per-class populations: output class
-``l = row % 128`` (the output lane) and input class ``b = col % 128``
-(the slot lane).  A skewed degree distribution concentrates entries in a
-few classes and pays the max everywhere.  The permutation built here
-deals vertices HEAVY-FIRST round-robin across (segment, lane) buckets so
-every lane class receives the same *expected* load — the strongest
-balancing a single static relabeling can provide (the realized per-cell
-noise of an already-uniform random graph is not reducible this way; see
-BENCH.md round-4 notes for measurements).
-
-This is also the load-balance lever ``parallel/dist_matrix.py`` names
-for skewed graphs: dealing rows across contiguous row blocks equalizes
-per-shard nnz under the uniform-partition invariant.
+Deals vertices heavy-first round-robin across the shards of the 1-D
+block-row partition (``parallel/dist_matrix.py``), so every shard
+receives an equal share of the stored entries on skewed graphs while
+the uniform-partition invariant holds.
 
 Reference role: the storage/format-conversion layer — choosing the
 representation that makes the kernel fast (reference
@@ -26,69 +16,22 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
-    "deal_permutation",
-    "spmv_relabel",
     "relabel_degree_sorted",
 ]
-
-
-def deal_permutation(deg: np.ndarray, n: int, seg: int):
-    """Heavy-first round-robin assignment over (segment, lane) buckets.
-
-    Returns ``(old_of_new, new_of_old)`` int32 permutations such that the
-    k-th heaviest vertex lands in bucket ``k % (n_segments * 128)``
-    (segment-major, lane-minor) at depth ``k // n_buckets`` — every
-    ``(segment, id % 128)`` class receives an equal share of the degree
-    mass.  ``seg`` is the id-space segment size whose class structure the
-    kernel cares about: the 16384-row output block for rows, the window
-    width ``cw`` for columns.
-    """
-    assert seg % 128 == 0 and seg > 0
-    order = np.argsort(-np.asarray(deg, np.int64), kind="stable")
-    ns = (n + seg - 1) // seg
-    nb = ns * 128
-    k = np.arange(ns * seg, dtype=np.int64)
-    b = k % nb
-    tid = (b // 128) * seg + (k // nb) * 128 + (b % 128)
-    tid = tid[tid < n]  # skip padded slots, preserving deal order
-    assert tid.size == n
-    old_of_new = np.empty(n, np.int32)
-    old_of_new[tid] = order
-    new_of_old = np.empty(n, np.int32)
-    new_of_old[order] = tid
-    return old_of_new, new_of_old
-
-
-def spmv_relabel(m, n, rows, cols, seg_rows: int = 16384, seg_cols: int = 16384):
-    """Permutations for a relabeled SpMV ``out = P_r (A) P_c^T``:
-
-    returns ``(row_new_of_old, row_old_of_new, col_new_of_old,
-    col_old_of_new)``.  Rows and columns are dealt independently (nothing
-    in the kernel requires a symmetric relabeling): rows by out-degree
-    over 16384-row output blocks, columns by in-degree over ``seg_cols``
-    (the window width)."""
-    rows = np.asarray(rows)
-    cols = np.asarray(cols)
-    rdeg = np.bincount(rows, minlength=m)
-    cdeg = np.bincount(cols, minlength=n)
-    row_old_of_new, row_new_of_old = deal_permutation(rdeg, m, seg_rows)
-    col_old_of_new, col_new_of_old = deal_permutation(cdeg, n, seg_cols)
-    return row_new_of_old, row_old_of_new, col_new_of_old, col_old_of_new
 
 
 def relabel_degree_sorted(rows, cols, m, n_shards: int, mloc: int):
     """Row permutation equalizing per-shard nnz for the 1-D block-row
     partition (``parallel/dist_matrix.py``): deal rows heavy-first
-    round-robin across shards (segment = mloc, no lane structure needed —
-    pass the shard size as both segment and lane granularity).
+    round-robin across shards of ``mloc`` rows each.
 
     Returns ``(old_of_new, new_of_old)``."""
     deg = np.bincount(np.asarray(rows), minlength=m)
     order = np.argsort(-deg.astype(np.int64), kind="stable")
     # k-th heaviest row -> shard k % n_shards, local slot k // n_shards;
-    # generate over the padded shard space, then drop slots >= m (same
-    # filter trick as deal_permutation — a bijection of the padded space
-    # restricted to live ids stays a bijection)
+    # generate over the padded shard space, then drop slots >= m (a
+    # bijection of the padded space restricted to live ids stays a
+    # bijection)
     k = np.arange(n_shards * mloc, dtype=np.int64)
     tid = (k % n_shards) * mloc + k // n_shards
     tid = tid[tid < m]

@@ -1,6 +1,6 @@
 """Runtime type objects (BOOL / INT / UINT / FLOAT).
 
-TPU-native analog of the reference type system (reference:
+JAX analog of the reference type system (reference:
 ``include/spla/type.hpp:46-65``, ``src/core/ttype.hpp:47-66``,
 ``src/type.cpp``).  Instead of carrying C++ source strings for runtime
 OpenCL codegen, a Type simply wraps a jnp dtype — jax tracing *is* the

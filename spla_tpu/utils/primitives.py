@@ -1,7 +1,7 @@
 """Parallel primitive parity wrappers.
 
 Named equivalents of the reference's OpenCL device primitives — each maps
-to ONE native XLA TPU op, which is the whole point of the redesign:
+to ONE native XLA op, which is the whole point of the redesign:
 
 * ``sort_by_key``   <- bitonic/radix ``cl_sort_by_key.hpp:44-95``
 * ``reduce_by_key`` <- ``cl_reduce_by_key.hpp:43-90``
@@ -31,7 +31,7 @@ __all__ = [
 @jax.jit
 def sort_by_key(keys, *values):
     """Stable ascending sort of (keys, values...) by keys (reference
-    radix/bitonic sort-by-key; on TPU this is ``lax.sort``'s sort unit)."""
+    radix/bitonic sort-by-key; here ``lax.sort``)."""
     out = lax.sort((keys, *values), num_keys=1, is_stable=True)
     return out
 

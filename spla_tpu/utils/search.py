@@ -22,7 +22,7 @@ def rowwise_find(flat_sorted, lo, hi, keys, steps: int = 32):
     Returns ``(pos, found)`` where pos is the index into ``flat_sorted`` of
     the match (undefined when not found).  ``steps`` (static) bounds the
     bisection: ``ceil(log2(max window + 1))`` suffices — each step is a
-    full-width TPU gather, so callers that know the max row degree should
+    full-width gather, so callers that know the max row degree should
     pass a tight bound (32 covers any int32 window).
     """
     lo = lo.astype(jnp.int32)

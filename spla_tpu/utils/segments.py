@@ -1,4 +1,4 @@
-"""Generalized segment reductions — the TPU replacement for the reference's
+"""Generalized segment reductions — the replacement for the reference's
 sort/scan/reduce-by-key OpenCL pipeline (reference: ``src/opencl/
 cl_reduce_by_key.hpp:43-90``, ``cl_prefix_sum.hpp:39-85``,
 ``cl_sort_by_key.hpp:44-95``).
@@ -7,7 +7,9 @@ Two paths:
 
 * **scatter path** — when the combine op coincides with a hardware scatter
   combiner (add/mul/min/max, commutative monoids), use ``jnp.ndarray.at``
-  scatter ops; XLA lowers these to native TPU scatter.
+  scatter ops; XLA lowers these to native scatters (atomics on the GPU,
+  so a float "add" fold sums in an order that changes from run to run;
+  min/max and integer folds are exact and repeat).
 * **generic path** — for any associative op (BOR, LOR, user ops, ...), a
   segmented inclusive scan via ``lax.associative_scan`` over
   (value, has, boundary-flag) triples.  Validity flags make skipped
@@ -93,7 +95,7 @@ def segment_fold(values, seg_ids, valid, num_segments, op, init, sorted_ids=True
     if not getattr(op, "associative", True):
         raise ValueError(
             f"op {getattr(op, 'name', op)} is not associative; cannot be used "
-            "as a parallel reduction monoid on TPU"
+            "as a parallel reduction monoid"
         )
     if not sorted_ids:
         order = jnp.argsort(seg_ids, stable=True)

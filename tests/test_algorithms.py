@@ -77,6 +77,7 @@ def test_sssp_vs_naive(seed):
     got = np.asarray(sssp(Ac, 0).values)
     expect = sssp_naive(adj, w, 0)
     finite = np.isfinite(expect)
+    # tolerance: f32 path sums in another order than the oracle's
     np.testing.assert_allclose(got[finite], expect[finite], rtol=1e-5)
     assert np.all(np.isinf(got[~finite]))
 
@@ -93,6 +94,8 @@ def test_pr_vs_naive():
     got = np.asarray(pr(Ac, alpha, eps).values)
     adj_in, w_in = to_adj(As)
     expect = pr_naive(adj_in, w_in, alpha, eps)
+    # tolerance: f32 power iteration stopped at eps; the sum order of
+    # each step differs from the oracle's
     np.testing.assert_allclose(got, expect, rtol=1e-3, atol=1e-7)
 
 
@@ -146,6 +149,7 @@ def test_sssp_directed_vs_naive(seed):
     got = np.asarray(sssp(Ac, 0).values)
     expect = sssp_naive(adj, w, 0)
     finite = np.isfinite(expect)
+    # tolerance: f32 path sums in another order than the oracle's
     np.testing.assert_allclose(got[finite], expect[finite], rtol=1e-5)
     assert np.all(np.isinf(got[~finite]))
 
@@ -167,4 +171,5 @@ def test_default_At_symmetric_reuses_A():
     got = sp.csr_matrix(
         (np.asarray(T1.values), np.asarray(T1.cols), np.asarray(T1.indptr)),
         shape=D.shape).toarray()
+    # exact: elementwise copies/negation of f32 values, no arithmetic
     np.testing.assert_allclose(got, D.T.toarray())

@@ -21,6 +21,8 @@ def test_bsr_spmv(block):
     B = bsr_from_csr_host(csr_from_scipy(a), block=block)
     x = rng.random(n, dtype=np.float32)
     y = np.asarray(bsr_spmv(B, jnp.asarray(x)))
+    # tolerance: f32 sums vs the float64 scipy reference; their order
+    # differs (and changes from run to run under GPU atomics)
     np.testing.assert_allclose(y, d @ x, rtol=1e-4, atol=1e-5)
 
 
@@ -29,6 +31,8 @@ def test_bsr_spmv_random_sparse():
     B = bsr_from_csr_host(csr_from_scipy(a), block=64)
     x = np.random.default_rng(3).random(260, dtype=np.float32)
     y = np.asarray(bsr_spmv(B, jnp.asarray(x)))
+    # tolerance: f32 sums vs the float64 scipy reference; their order
+    # differs (and changes from run to run under GPU atomics)
     np.testing.assert_allclose(y, a @ x, rtol=1e-4, atol=1e-5)
 
 
@@ -37,6 +41,8 @@ def test_bsr_spmm():
     B = bsr_from_csr_host(csr_from_scipy(a), block=64)
     X = np.random.default_rng(5).random((150, 17), dtype=np.float32)
     Y = np.asarray(bsr_spmm(B, jnp.asarray(X)))
+    # tolerance: f32 sums vs the float64 scipy reference; their order
+    # differs (and changes from run to run under GPU atomics)
     np.testing.assert_allclose(Y, a @ X, rtol=1e-4, atol=1e-5)
 
 
@@ -48,6 +54,8 @@ def test_bsr_generalized_mul():
     # note BSR stores whole blocks; zeros inside a stored block contribute
     # op_mul(0, x) — document via the test (block semantics)
     y = np.asarray(bsr_spmv(B, jnp.asarray(x), op_mul=lambda av, xv: av * 2 * xv))
+    # tolerance: f32 sums vs the float64 scipy reference; their order
+    # differs (and changes from run to run under GPU atomics)
     np.testing.assert_allclose(y, 2 * (a @ x), rtol=1e-4, atol=1e-5)
 
 
@@ -63,6 +71,8 @@ def test_bsr_spmv_rejects_non_plus_accumulator():
     with pytest.raises(AssertionError):
         bsr_spmv(A, x, op_add=op.MIN_FLOAT)
     # PLUS (or None) passes
+    # tolerance: f32 sums vs the float64 scipy reference; their order
+    # differs (and changes from run to run under GPU atomics)
     np.testing.assert_allclose(
         np.asarray(bsr_spmv(A, x, op_add=op.PLUS_FLOAT)), np.ones(8)
     )

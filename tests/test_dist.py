@@ -6,7 +6,6 @@ import pytest
 import scipy.sparse as sp
 
 import jax
-import jax.numpy as jnp
 
 from spla_tpu import op, formats as F
 from spla_tpu.algorithms import bfs_naive, sssp_naive
@@ -57,6 +56,8 @@ def test_dist_spmv_matches_single(mesh):
     xs = shard_vector_by_rows(x, 8, sc.mloc, mesh)
     r = dist_masked_spmv(mesh, sc, xs, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
     got = np.asarray(r).ravel()[:n]
+    # tolerance: f32 sums vs the float64 scipy reference; their order
+    # differs (and changes from run to run under GPU atomics)
     np.testing.assert_allclose(got, A @ x, rtol=1e-4, atol=1e-5)
 
 
@@ -73,6 +74,7 @@ def test_dist_pagerank_matches_naive(mesh):
     from spla_tpu.algorithms import pr
 
     p1 = np.asarray(pr(F.csr_from_scipy(As), alpha, eps).values)
+    # tolerance: the same f32 recurrence with per-shard partial sums
     np.testing.assert_allclose(p, p1, rtol=1e-4, atol=1e-8)
 
 
@@ -94,6 +96,7 @@ def test_dist_sssp_matches_naive(mesh):
     v = np.asarray(dist_sssp(mesh, sc, 0)).ravel()[:n]
     expect = sssp_naive(adj, w, 0)
     finite = np.isfinite(expect)
+    # tolerance: f32 path sums in another order than the oracle's
     np.testing.assert_allclose(v[finite], expect[finite], rtol=1e-5)
     assert np.all(np.isinf(v[~finite]))
 
@@ -129,6 +132,8 @@ def test_dist_mxm_matches_scipy(mesh):
     R = dist_mxm(mesh, As, Bs, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
     got = _to_dense_sharded(R, n)
     ref = (A @ B).toarray()
+    # tolerance: f32 sums vs the float64 scipy reference; their order
+    # differs (and changes from run to run under GPU atomics)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
 
 
@@ -142,6 +147,8 @@ def test_dist_mxm_rectangular(mesh):
     Bs = shard_csr_by_rows(F.csr_from_scipy(B), 8, mesh)
     R = dist_mxm(mesh, As, Bs, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
     got = _to_dense_sharded(R, 75)
+    # tolerance: f32 sums vs the float64 scipy reference; their order
+    # differs (and changes from run to run under GPU atomics)
     np.testing.assert_allclose(got, (A @ B).toarray(), rtol=1e-4, atol=1e-5)
 
 
@@ -155,114 +162,6 @@ def test_dist_tc_matches_naive(mesh):
     got = dist_tc(mesh, As)
     adj = [A.indices[A.indptr[i] : A.indptr[i + 1]].tolist() for i in range(n)]
     assert got == tc_naive(adj)
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernel under shard_map (per-shard cell formats + halo all-gather)
-# ---------------------------------------------------------------------------
-
-
-def _skip_no_native():
-    from spla_tpu.pallas.cellpack_native import _native_lib
-
-    if _native_lib() is None:
-        pytest.skip("no native toolchain")
-
-
-def test_dist_pagerank_pallas(mesh):
-    from spla_tpu.parallel import dist_pagerank_pallas, shard_cell_spmv
-
-    _skip_no_native()
-    n = 130
-    A = random_undirected(n, 5, 12).astype(np.float32)
-    outdeg = np.asarray(A.sum(axis=0)).ravel()
-    outdeg[outdeg == 0] = 1.0
-    As = A.multiply(0.85 / outdeg).tocsr().astype(np.float32)
-    sc = shard_cell_spmv(F.csr_from_scipy(As), 8, mesh, cw=1024)
-    assert sc is not None
-    p = np.asarray(dist_pagerank_pallas(mesh, sc, 0.85, 1e-5)).ravel()[:n]
-    from spla_tpu.algorithms import pr
-
-    p1 = np.asarray(pr(F.csr_from_scipy(As), 0.85, 1e-5).values)
-    np.testing.assert_allclose(p, p1, rtol=1e-4, atol=1e-8)
-
-
-def test_dist_bfs_pallas(mesh):
-    from spla_tpu.parallel import dist_bfs_pallas, shard_cell_spmv
-
-    _skip_no_native()
-    n = 150
-    A = random_undirected(n, 6, 13)
-    adj = [A.indices[A.indptr[i] : A.indptr[i + 1]].tolist() for i in range(n)]
-    sc = shard_cell_spmv(
-        F.csr_from_scipy(A.astype(np.float32)), 8, mesh, cw=1024, values=1.0
-    )
-    v = np.asarray(dist_bfs_pallas(mesh, sc, 0)).ravel()[:n]
-    np.testing.assert_array_equal(v, bfs_naive(adj, 0))
-
-
-def test_dist_sssp_pallas(mesh):
-    from spla_tpu.parallel import dist_sssp_pallas, shard_cell_spmv
-
-    _skip_no_native()
-    n = 110
-    A = random_undirected(n, 6, 14, weighted=True)
-    adj = [A.indices[A.indptr[i] : A.indptr[i + 1]].tolist() for i in range(n)]
-    w = [A.data[A.indptr[i] : A.indptr[i + 1]].tolist() for i in range(n)]
-    sc = shard_cell_spmv(F.csr_from_scipy(A), 8, mesh, cw=1024)
-    v = np.asarray(dist_sssp_pallas(mesh, sc, 0)).ravel()[:n]
-    expect = sssp_naive(adj, w, 0)
-    finite = np.isfinite(expect)
-    np.testing.assert_allclose(v[finite], expect[finite], rtol=1e-4)
-    assert np.all(np.isinf(v[~finite]))
-
-
-def test_shard_cell_padding_preserves_rb_contiguity(mesh):
-    # padding tiles must repeat the LAST tile's rb/wb: an rb=0 pad after
-    # later row blocks would corrupt output on real hardware (the Pallas
-    # output pipeline requires consecutive visits per output block)
-    from spla_tpu.parallel import shard_cell_spmv
-
-    _skip_no_native()
-    # skew nnz so shard tile counts differ
-    n = 160
-    rows = np.concatenate([np.zeros(500, np.int64), [150]])
-    cols = np.concatenate([np.arange(500) % n, [3]]).astype(np.int64)
-    vals = np.ones(rows.size, np.float32)
-    A = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
-    A.sum_duplicates()
-    sc = shard_cell_spmv(F.csr_from_scipy(A), 8, mesh, cw=1024)
-    rb = np.asarray(sc.rb_of_tile)
-    for s in range(8):
-        # rb sequence must be non-decreasing per shard (contiguous blocks)
-        assert np.all(np.diff(rb[s]) >= 0), rb[s]
-
-
-def test_format_cache_no_id_aliasing():
-    # dropping a matrix and building another must never serve the old
-    # packed format (id-keyed caches alias recycled ids after GC)
-    import gc
-
-    import jax.numpy as jnp
-
-    from spla_tpu.pallas.spmv import _FORMAT_CACHE, get_cell_format
-
-    a1 = sp.random(100, 100, density=0.05, random_state=1, dtype=np.float32)
-    A1 = F.csr_from_scipy(a1)
-    f1 = get_cell_format(A1, cw=1024)
-    vid = id(A1.values)
-    del A1
-    gc.collect()
-    # a dead key must not resolve, whatever object now owns that id
-    class Dummy:
-        pass
-
-    probe = Dummy()
-    assert _FORMAT_CACHE.get(probe, ("v", 1024)) is None
-    a2 = sp.random(60, 60, density=0.05, random_state=2, dtype=np.float32)
-    A2 = F.csr_from_scipy(a2)
-    f2 = get_cell_format(A2, cw=1024)
-    assert f2.m == 60  # freshly built for A2, never f1
 
 
 def test_dist_bfs_sparse_exchange_stats(mesh):
@@ -324,8 +223,10 @@ def test_dist_sssp_sparse_exchange_matches(mesh):
     v_dense = np.asarray(dist_sssp(mesh, sc, 0, frontier_cap=0)).ravel()[:n]
     v_sp, st = dist_sssp(mesh, sc, 0, frontier_cap=6, with_stats=True)
     v_sp = np.asarray(v_sp).ravel()[:n]
+    # tolerance: same f32 relaxations, exchanged in another order
     np.testing.assert_allclose(v_sp, v_dense, rtol=1e-6)
     expect = sssp_naive(adj, w, 0)
+    # tolerance: f32 path sums in another order than the oracle's
     np.testing.assert_allclose(v_sp, expect, rtol=1e-5)
     assert st["sparse_rounds"] >= 1
 
@@ -384,6 +285,7 @@ def test_dist_pagerank_overlap_matches(mesh):
         == int(np.asarray(As.nnz))
     p0 = np.asarray(dist_pagerank(mesh, sc, 0.85, 1e-6)).ravel()
     p1 = np.asarray(dist_pagerank_overlap(mesh, diag, off, 0.85, 1e-6)).ravel()
+    # tolerance: the same f32 recurrence with per-shard partial sums
     np.testing.assert_allclose(p1, p0, rtol=1e-5, atol=1e-9)
 
 
@@ -436,8 +338,10 @@ def test_dist_sssp_tiered_caps(mesh):
     sc = shard_csr_by_rows(F.csr_from_scipy(A), 8, mesh)
     v_dense = np.asarray(dist_sssp(mesh, sc, 0, frontier_cap=0)).ravel()[:n]
     v_t, st = dist_sssp(mesh, sc, 0, frontier_cap=(2, 8), with_stats=True)
+    # tolerance: same f32 relaxations, exchanged in another order
     np.testing.assert_allclose(np.asarray(v_t).ravel()[:n], v_dense,
                                rtol=1e-6)
+    # tolerance: f32 path sums in another order than the oracle's
     np.testing.assert_allclose(np.asarray(v_t).ravel()[:n],
                                sssp_naive(adj, w, 0), rtol=1e-5)
     assert st["sparse_rounds"] >= 1
@@ -450,78 +354,3 @@ def test_dist_default_cap_is_ladder():
     assert _normalize_caps(0, 16384) == ()
     assert _normalize_caps(7, 16384) == (7,)
     assert _normalize_caps((32, 4, 32), 16384) == (4, 32)
-
-
-def test_dist_pagerank_pallas_overlap(mesh):
-    """Diag/off-diag split Pallas PageRank (r4 verdict item 6): the
-    diagonal apply is gather-independent; results match the single-chip
-    pr exactly enough (same fp recurrence, different nnz split order)."""
-    from spla_tpu.parallel import (
-        dist_pagerank_pallas_overlap,
-        shard_cell_spmv_split,
-    )
-
-    _skip_no_native()
-    n = 130
-    A = random_undirected(n, 5, 12).astype(np.float32)
-    outdeg = np.asarray(A.sum(axis=0)).ravel()
-    outdeg[outdeg == 0] = 1.0
-    As = A.multiply(0.85 / outdeg).tocsr().astype(np.float32)
-    pair = shard_cell_spmv_split(F.csr_from_scipy(As), 8, mesh, cw=1024)
-    assert pair is not None
-    diag, off = pair
-    assert diag.n_frame == diag.mloc  # diagonal addresses the local vec
-    p = np.asarray(
-        dist_pagerank_pallas_overlap(mesh, diag, off, 0.85, 1e-5)
-    ).ravel()[:n]
-    from spla_tpu.algorithms import pr
-
-    p1 = np.asarray(pr(F.csr_from_scipy(As), 0.85, 1e-5).values)
-    np.testing.assert_allclose(p, p1, rtol=1e-4, atol=1e-8)
-
-
-def test_dist_bfs_pallas_overlap(mesh):
-    from spla_tpu.parallel import (
-        dist_bfs_pallas_overlap,
-        shard_cell_spmv_split,
-    )
-
-    _skip_no_native()
-    n = 150
-    A = random_undirected(n, 6, 13)
-    adj = [A.indices[A.indptr[i]: A.indptr[i + 1]].tolist()
-           for i in range(n)]
-    pair = shard_cell_spmv_split(
-        F.csr_from_scipy(A.astype(np.float32)), 8, mesh, cw=1024,
-        values=1.0)
-    assert pair is not None
-    diag, off = pair
-    v = np.asarray(dist_bfs_pallas_overlap(mesh, diag, off, 0)).ravel()[:n]
-    np.testing.assert_array_equal(v, bfs_naive(adj, 0))
-    # sparse-capped exchange variant agrees too
-    v2 = np.asarray(
-        dist_bfs_pallas_overlap(mesh, diag, off, 0, frontier_cap=4)
-    ).ravel()[:n]
-    np.testing.assert_array_equal(v2, bfs_naive(adj, 0))
-
-
-def test_dist_sssp_pallas_overlap(mesh):
-    from spla_tpu.parallel import (
-        dist_sssp_pallas_overlap,
-        shard_cell_spmv_split,
-    )
-
-    _skip_no_native()
-    n = 110
-    A = random_undirected(n, 6, 14, weighted=True)
-    adj = [A.indices[A.indptr[i]: A.indptr[i + 1]].tolist()
-           for i in range(n)]
-    w = [A.data[A.indptr[i]: A.indptr[i + 1]].tolist() for i in range(n)]
-    pair = shard_cell_spmv_split(F.csr_from_scipy(A), 8, mesh, cw=1024)
-    assert pair is not None
-    diag, off = pair
-    v = np.asarray(dist_sssp_pallas_overlap(mesh, diag, off, 0)).ravel()[:n]
-    expect = sssp_naive(adj, w, 0)
-    finite = np.isfinite(expect)
-    np.testing.assert_allclose(v[finite], expect[finite], rtol=1e-4)
-    assert np.all(np.isinf(v[~finite]))

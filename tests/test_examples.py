@@ -57,6 +57,7 @@ def test_pi_example(capsys):
     assert examples.pi.run(["--n", "20000"]) == 0
     out = capsys.readouterr().out
     pi = float(out.strip().rsplit(" ", 1)[-1])
+    # tolerance: a Monte-Carlo estimate from 20000 samples (sd ~0.012)
     assert abs(pi - 3.14159) < 0.1
 
 

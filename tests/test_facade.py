@@ -90,6 +90,7 @@ def test_matrix_mxv_and_vxm():
 def test_matrix_mxm():
     A = Matrix.from_lists([0, 1], [1, 0], [2.0, 3.0], (2, 2), FLOAT)
     r = A.mxm(A, FLOAT.MULT, FLOAT.PLUS)
+    # tolerance: one f32 operation, compared at numpy's default rtol
     np.testing.assert_allclose(r.to_numpy(), [[6.0, 0.0], [0.0, 6.0]])
 
 
@@ -255,7 +256,7 @@ def test_vector_fill_value_semantics():
 
 def test_facade_device_resident_lazy_sync():
     """Op results stay device-resident; host staging syncs lazily and
-    chained ops never round-trip (VERDICT r1: facade D2H per op)."""
+    chained ops never round-trip to the host."""
     import numpy as np
 
     from spla_tpu import INT

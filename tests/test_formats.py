@@ -59,6 +59,7 @@ def test_csr_build_vs_scipy(rng):
         (m, n), r, c, x, fill=0.0, reduce_fn=lambda a, b: a + b, capacity=nnz
     )
     got = np.asarray(F.csr_to_dense(ours))
+    # tolerance: f32 sums taken in another order than the reference's
     np.testing.assert_allclose(got, ref.toarray(), rtol=1e-5)
 
 
@@ -68,6 +69,7 @@ def test_csr_coo_roundtrip(rng):
     coo = F.csr_to_coo(csr)
     back = F.coo_to_csr(coo)
     np.testing.assert_array_equal(np.asarray(back.indptr), np.asarray(csr.indptr))
+    # exact: elementwise copies/negation of f32 values, no arithmetic
     np.testing.assert_allclose(
         np.asarray(F.csr_to_dense(back)), a.toarray(), rtol=1e-6
     )
@@ -77,6 +79,7 @@ def test_csr_with_padding_capacity(rng):
     a = sp.random(10, 10, density=0.3, random_state=2, dtype=np.float32)
     csr = F.csr_from_scipy(a, capacity=256)
     assert csr.capacity == 256
+    # exact: elementwise copies/negation of f32 values, no arithmetic
     np.testing.assert_allclose(np.asarray(F.csr_to_dense(csr)), a.toarray())
     # pad rows are the dump row m
     nnz = int(csr.nnz)
@@ -86,6 +89,7 @@ def test_csr_with_padding_capacity(rng):
 def test_csr_transpose_host(rng):
     a = sp.random(15, 9, density=0.25, random_state=3, dtype=np.float32)
     at = F.csr_transpose_host(F.csr_from_scipy(a))
+    # exact: elementwise copies/negation of f32 values, no arithmetic
     np.testing.assert_allclose(np.asarray(F.csr_to_dense(at)), a.toarray().T)
 
 
@@ -101,6 +105,7 @@ def test_bsr_from_csr(rng):
     blocks = np.asarray(bsr.blocks)[:nnzb]
     for t in range(nnzb):
         dense[brows[t] * 8 : brows[t] * 8 + 8, bcols[t] * 8 : bcols[t] * 8 + 8] = blocks[t]
+    # exact: elementwise copies/negation of f32 values, no arithmetic
     np.testing.assert_allclose(dense[:20, :20], a.toarray())
 
 

@@ -71,6 +71,7 @@ def test_native_matches_python(mtx_file):
     py = _parse_python(mtx_file)
     for a, b in zip(nat, py):
         if isinstance(a, np.ndarray):
+            # exact up to the default rtol: both parsers read the same decimal text
             np.testing.assert_allclose(a, b)
         else:
             assert a == b
@@ -81,6 +82,7 @@ def test_save_roundtrip(mtx_file, tmp_path):
     out = str(tmp_path / "o.mtx")
     l.save(out)
     l2 = load_mtx(out, make_undirected=False, remove_loops=False)
+    # tolerance: values round-trip through the '%.9g' text format
     np.testing.assert_allclose(
         l.to_scipy().toarray(), l2.to_scipy().toarray()
     )

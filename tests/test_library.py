@@ -22,6 +22,26 @@ def test_force_no_acceleration():
     assert not lib.is_accelerated()
 
 
+@pytest.mark.parametrize("platform, forced_off, want", [
+    ("gpu", False, True),
+    ("gpu", True, False),
+    ("cpu", False, False),
+])
+def test_is_accelerated_names_the_gpu(monkeypatch, platform, forced_off, want):
+    """The one device decision: a GPU is accelerated unless forced off."""
+    from types import SimpleNamespace
+
+    import jax
+
+    from spla_tpu.library import Library
+
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a: [SimpleNamespace(platform=platform)])
+    lib = Library()
+    lib.force_no_acceleration = forced_off
+    assert lib.is_accelerated() is want
+
+
 def test_message_callback():
     got = []
     set_message_callback(lambda *a: got.append(a))

@@ -56,11 +56,13 @@ def test_unary_semantics():
     a = jnp.asarray([4.0, -9.0, 0.25], jnp.float32)
     np.testing.assert_array_equal(ops.IDENTITY_FLOAT(a), a)
     np.testing.assert_array_equal(ops.AINV_FLOAT(a), -a)
+    # tolerance: one f32 operation, compared at numpy's default rtol
     np.testing.assert_allclose(ops.MINV_FLOAT(a), 1.0 / a)
     np.testing.assert_array_equal(ops.LNOT_FLOAT(jnp.asarray([0.0, 2.0])), [1.0, 0.0])
     np.testing.assert_array_equal(ops.UONE_FLOAT(a), [1.0, 1.0, 1.0])
     np.testing.assert_array_equal(ops.ABS_FLOAT(a), [4.0, 9.0, 0.25])
     np.testing.assert_array_equal(ops.BNOT_INT(jnp.asarray([0], jnp.int32)), [-1])
+    # tolerance: one f32 operation, compared at numpy's default rtol
     np.testing.assert_allclose(ops.SQRT_FLOAT(jnp.asarray([4.0])), [2.0])
     # uint AINV is modular like C++
     assert int(ops.AINV_UINT(jnp.asarray([1], jnp.uint32))[0]) == 2**32 - 1

@@ -90,6 +90,7 @@ def test_sssp_distances(key, tmp_path):
     m_ref = parity.unreached_mask(ref)
     m_our = parity.unreached_mask(ours)
     np.testing.assert_array_equal(m_our, m_ref)
+    # tolerance: f32 path sums; the reference adds in another order
     np.testing.assert_allclose(ours[~m_our], ref[~m_ref], rtol=1e-6,
                                atol=1e-6)
 
@@ -106,6 +107,7 @@ def test_pagerank(key, tmp_path):
     scaled = (alpha / deg[rows]).astype(np.float32)
     ours = np.asarray(alg.pr(_our_csr(n, rows, cols, scaled),
                              alpha=0.85, eps=1e-6).values)
+    # tolerance: f32 power iteration; the reference sums in another order
     assert abs(ours.sum() - ref.sum()) < 1e-3
     np.testing.assert_allclose(ours, ref, rtol=1e-3, atol=1e-6)
 
@@ -137,6 +139,7 @@ def test_directed_push_parity(tmp_path):
     ourss = np.asarray(alg.sssp(A, 0).values)
     m = parity.unreached_mask(refs)
     np.testing.assert_array_equal(parity.unreached_mask(ourss), m)
+    # tolerance: f32 path sums; the reference adds in another order
     np.testing.assert_allclose(ourss[~m], refs[~m], rtol=1e-6, atol=1e-6)
 
 

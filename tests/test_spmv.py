@@ -132,35 +132,9 @@ def test_mxv_random_vs_scipy(rng, seed):
     v = DenseVec(jnp.asarray(x), jnp.float32(0))
     mask = DenseVec(jnp.ones(64, jnp.float32), jnp.float32(0))
     r = mxv_masked(mask, ac, v, op.MULT_FLOAT, op.PLUS_FLOAT, op.ALWAYS_FLOAT, 0.0)
+    # tolerance: f32 sums vs the float64 scipy reference; their order
+    # differs (and changes from run to run under GPU atomics)
     np.testing.assert_allclose(np.asarray(r.values), a @ x, rtol=1e-4, atol=1e-5)
-
-
-def test_int_pallas_gate_bounds_products_and_rows():
-    # the exact-f32 embedding must refuse when PRODUCTS or row sums can
-    # exceed 2^24 even though both operands pass the 2^23 operand gate
-    import numpy as np
-    import scipy.sparse as sp
-    import jax.numpy as jnp
-    from spla_tpu import formats as F2, op as OP2
-    from spla_tpu.pallas.spmv import pallas_spmv_fn_int
-    from spla_tpu.pallas.cellpack_native import _native_lib
-
-    if _native_lib() is None:
-        import pytest
-        pytest.skip("no native toolchain")
-    a = sp.random(300, 300, density=0.05, random_state=5, dtype=np.float32)
-    a.data = np.full_like(a.data, 100000.0)  # < 2^23, but 1e5*1e3 > 2^24
-    A = F2.csr_from_scipy(a.astype(np.int32), dtype=np.int32)
-    fn = pallas_spmv_fn_int(A, OP2.MULT_INT, OP2.PLUS_INT, 0)
-    x = np.full(300, 1001, np.int32)
-    if fn is not None:
-        r = np.asarray(fn(A, jnp.asarray(x)))  # must fall back, stay exact
-        # exact int32 (wrap-around) semantics, same as the XLA int path
-        ref = np.asarray(
-            (a.astype(np.int64) @ x.astype(np.int64))
-        ).ravel().astype(np.int64)
-        got = np.asarray(r).astype(np.int64)
-        assert np.array_equal(got & 0xFFFFFFFF, ref & 0xFFFFFFFF)
 
 
 def test_vxm_masked_dense_equals_densified_sparse(rng):
@@ -188,37 +162,10 @@ def test_vxm_masked_dense_equals_densified_sparse(rng):
     ):
         dense = vxm_masked_dense(mask, sv, At, op_mul, op_add, sel, init)
         sparse = vxm_masked(mask, sv, At, op_mul, op_add, sel, init)
+        # tolerance: the two push SpMVs fold the same f32 products (GPU
+        # atomics may order them differently from run to run)
         np.testing.assert_allclose(
             np.asarray(dense.values),
             np.asarray(sparse_to_dense_vec(sparse).values),
             rtol=1e-6,
         )
-
-
-def test_dispatch_tracer_counter(monkeypatch):
-    """Inside a user jit the accelerated dispatch cannot run; the
-    tracer-path counter records it (r4 verdict item 9, documented in
-    docs/getting-started.md)."""
-    import jax
-
-    from spla_tpu.containers import DenseVec
-    from spla_tpu.ops import spmv as S
-
-    monkeypatch.setenv("SPLA_FORCE_PALLAS_DISPATCH", "1")
-    a = sp.random(300, 300, density=0.02, random_state=9,
-                  dtype=np.float32).tocsr()
-    A = F.csr_from_scipy(a)
-    mask = DenseVec(jnp.ones(300, jnp.float32), jnp.float32(0))
-
-    @jax.jit
-    def step(A, mask, x):
-        r = S.mxv_masked(mask, A, x, op.MULT_FLOAT, op.PLUS_FLOAT,
-                         op.ALWAYS_FLOAT, 0.0)
-        return r.values
-
-    before = dict(S.DISPATCH_STATS)
-    x = DenseVec(jnp.arange(300, dtype=jnp.float32), jnp.float32(0))
-    out = np.asarray(step(A, mask, x))
-    assert S.DISPATCH_STATS["mxv_tracer"] == before["mxv_tracer"] + 1
-    np.testing.assert_allclose(out, a @ np.arange(300), rtol=1e-4,
-                               atol=1e-4)
